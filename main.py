@@ -6,12 +6,13 @@ import random
 
 import numpy as np
 
+from mipsfusion_tpu.compile_cache import enable_compile_cache
 from mipsfusion_tpu.config import load_config
 
 
 def main():
     parser = argparse.ArgumentParser(
-        description="MIPSFusion-TPU: neural RGB-D SLAM on TPU")
+        description="Multi-implicit-submap neural RGB-D SLAM")
     parser.add_argument("--config", type=str, required=True,
                         help="Path to config yaml file")
     parser.add_argument("--n_frames", type=int, default=None,
@@ -21,6 +22,7 @@ def main():
     parser.add_argument("--profile", type=str, default=None,
                         help="Write a jax profiler trace to this dir")
     args = parser.parse_args()
+    enable_compile_cache()
 
     cfg = load_config(args.config)
     out = cfg.get("data", {}).get("output")

@@ -4,10 +4,13 @@ API parity with the reference's NumpyMarchingCubes entry point
 (/root/reference/external/NumpyMarchingCubes/marching_cubes/_mcubes.pyx:19-24):
 ``marching_cubes(volume, isovalue, truncation) -> (verts, faces)`` with
 vertices in grid (voxel-index) coordinates and truncation-aware invalid
-voxel rejection. Builds the shared library on first use if missing.
+voxel rejection.
 
-A pure-python marching-tetrahedra fallback backs the same semantics when
-no C++ toolchain is available (slow; tests only).
+The shared library is built from ``native/marching_cubes/marching.cpp``
+on first use (it is not tracked by git). A failed build or load raises:
+there is no silent switch to a slower path. ``_marching_py`` is the
+pure-Python statement of the same algorithm, kept as the reference the
+tests compare the library against.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,35 +30,49 @@ _NATIVE_DIR = os.path.join(
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libmarching.so")
 
 _lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
 
 
-def _load_library() -> Optional[ctypes.CDLL]:
-    global _lib
-    if _lib is not None:
-        return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True)
-        except Exception:
-            return None
+def build_library(path: str = _LIB_PATH) -> None:
+    """Compile marching.cpp into ``path``. The compiler writes to a
+    temporary name in the same directory, which is then renamed into
+    place, so concurrent builders (test workers) never load a partial
+    file."""
+    src = os.path.join(_NATIVE_DIR, "marching.cpp")
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=os.path.dirname(path))
+    os.close(fd)
     try:
+        subprocess.run(
+            [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17",
+             "-shared", "-o", tmp, src],
+            check=True, capture_output=True, text=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load_library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not os.path.exists(_LIB_PATH):
+            build_library()
         lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
-        return None
-    lib.mc_extract.restype = ctypes.c_int
-    lib.mc_extract.argtypes = [
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_float, ctypes.c_float,
-        ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.POINTER(ctypes.c_int64),
-    ]
-    lib.mc_free.argtypes = [ctypes.c_void_p]
-    _lib = lib
-    return _lib
+        lib.mc_extract.restype = ctypes.c_int
+        lib.mc_extract.argtypes = [
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_float, ctypes.c_float,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.mc_free.argtypes = [ctypes.c_void_p]
+        _lib = lib
+        return _lib
 
 
 def marching_cubes(volume: np.ndarray, isovalue: float = 0.0,
@@ -67,8 +86,6 @@ def marching_cubes(volume: np.ndarray, isovalue: float = 0.0,
     """
     vol = np.ascontiguousarray(volume, dtype=np.float32)
     lib = _load_library()
-    if lib is None:
-        return _marching_py(vol, isovalue, truncation)
 
     vp = ctypes.POINTER(ctypes.c_double)()
     fp = ctypes.POINTER(ctypes.c_int64)()
@@ -92,7 +109,7 @@ def marching_cubes(volume: np.ndarray, isovalue: float = 0.0,
 
 
 # ---------------------------------------------------------------------------
-# pure-python fallback (same algorithm, for toolchain-less environments)
+# pure-Python reference (same algorithm; tests compare the library to it)
 # ---------------------------------------------------------------------------
 
 _TETS = np.array([[0, 1, 3, 7], [0, 3, 2, 7], [0, 2, 6, 7],

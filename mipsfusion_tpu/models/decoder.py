@@ -34,8 +34,8 @@ class DecoderConfig:
     n_hidden_sdf: int = 64
     n_hidden_branch: int = 128
     n_class: int = 5
-    # bf16 matmul inputs w/ f32 accumulation: full MXU rate on TPU
-    # (f32 matmul is ~8x slower on v5e); enabled by the system on TPU
+    # bf16 matmul operands with f32 accumulation; set per platform by
+    # scene_rep.for_platform, not from the config
     bf16: bool = False
 
 

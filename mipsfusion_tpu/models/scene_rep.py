@@ -1,6 +1,6 @@
 """Per-submap neural field: encode -> decode -> volume render -> losses.
 
-TPU-native counterpart of the reference JointEncoding
+Counterpart of the reference JointEncoding
 (/root/reference/model/scene_rep.py:11-238). The whole ray pipeline —
 depth-guided z-sampling, coordinate normalization, hash+frequency
 encoding, MLP decode, SDF-to-weight compositing, and the loss stack — is
@@ -40,12 +40,10 @@ class FieldConfig:
     """Static (hashable) configuration of the per-submap field + renderer.
 
     ``enc`` selects the spatial encoding: "HashGrid" (reference-parity
-    gather-based grid; fine on CPU, slow on TPU) or "Triplane" (the
-    TPU-native matmul-based factorized encoding — see
-    ops/encoding.py TriplaneConfig rationale).
+    hash grid) or "Triplane" (multiscale planes + CP lines, see
+    ops/encoding.py TriplaneConfig).
     """
     enc: str = "HashGrid"
-    use_pallas: bool = False     # Triplane via Pallas kernels (TPU only)
     grid: HashGridConfig = HashGridConfig()
     tri: TriplaneConfig = TriplaneConfig()
     freq: FrequencyConfig = FrequencyConfig()
@@ -102,7 +100,7 @@ class FieldConfig:
         )
         t = cfg["training"]
         return FieldConfig(
-            enc=enc, use_pallas=bool(cfg["grid"].get("use_pallas", False)),
+            enc=enc,
             grid=grid, tri=tri, freq=freq, decoder=decoder,
             n_range_d=t["n_range_d"], range_d=t["range_d"],
             n_samples_d=t["n_samples_d"],
@@ -157,13 +155,6 @@ def query_color_sdf(params: Dict, pts_norm: jnp.ndarray,
     division (ref scene_rep.py:118-128) is applied here.
     """
     x = pts_norm / cfg.norm_factor
-    if cfg.enc == "Triplane" and cfg.use_pallas:
-        # fully-fused differentiable query (one fwd kernel; hand-written
-        # bwd kernels) — see ops/field_pallas.py
-        from ..ops.field_pallas import field_query_diff
-        return field_query_diff(params, x, cfg.tri.resolutions,
-                                cfg.freq.n_frequencies,
-                                cfg.decoder.n_class)
     if cfg.enc == "Triplane":
         embed = triplane_encode(params["planes"], x, cfg.tri)
     else:
@@ -188,46 +179,28 @@ def query_sdf(params, pts, cfg, consts):
     return run_network(params, pts, cfg, consts)[..., 3:4]
 
 
-def run_network_fused(params: Dict, pts: jnp.ndarray, cfg: FieldConfig,
-                      consts: FieldConsts, sdf_only: bool = False
-                      ) -> jnp.ndarray:
-    """Inference-only field query via the fully-fused Pallas kernel
-    (ops/field_pallas.py): triplane + PE + decoder in one launch.
-
-    ~18x faster than the composite path on TPU (80x for sdf_only); NOT
-    differentiable — used by gradient-free callers (RO fitness, mesher
-    grid queries, render). Falls back to the composite path off-TPU.
-    """
-    if cfg.enc == "Triplane" and cfg.use_pallas:
-        from ..ops.field_pallas import field_query_pallas
-        flat = pts.reshape(-1, 3)
-        xg = normalize_coords(flat, consts) / cfg.norm_factor
-        out = field_query_pallas(params, xg, cfg.tri.resolutions,
-                                 cfg.freq.n_frequencies,
-                                 cfg.decoder.n_class, sdf_only=sdf_only)
-        return out.reshape(pts.shape[:-1] + (out.shape[-1],))
-    out = run_network(params, pts, cfg, consts)
-    return out[..., 3:4] if sdf_only else out
-
-
 def run_network_sdf_T(params: Dict, ptsT: jnp.ndarray, cfg: FieldConfig,
                       consts: FieldConsts) -> jnp.ndarray:
-    """SDF-only fused query on points ALREADY in [3, N] layout -> [N].
-
-    The points-minor layout is what the Pallas kernel consumes natively;
-    callers that can produce it directly (RO fitness) skip the [N,3] <->
-    [3,N] relayouts, which otherwise cost more than the query itself.
-    """
-    if cfg.enc == "Triplane" and cfg.use_pallas:
-        from ..ops.field_pallas import field_query_pallas
-        xg = ((ptsT - consts.bb_lo[:, None]) * consts.bb_inv_extent[:, None]
-              / cfg.norm_factor)
-        out = field_query_pallas(params, xg, cfg.tri.resolutions,
-                                 cfg.freq.n_frequencies,
-                                 cfg.decoder.n_class, sdf_only=True,
-                                 x_transposed=True, return_transposed=True)
-        return out[0]
+    """SDF of points in [3, N] layout -> [N] (RO fitness builds its
+    candidate points in this layout)."""
     return run_network(params, ptsT.T, cfg, consts)[..., 3]
+
+
+def for_platform(cfg: FieldConfig, platform: str) -> FieldConfig:
+    """The field path each backend runs, decided in this one place.
+
+    ``cpu``: the plain float32 path (the reference the tests hold).
+    ``gpu``: decoder matmuls with bf16 operands and f32 accumulation,
+    the fastest of bf16, default (TF32) and highest f32 precision on an
+    H100 at no ATE cost (PERF.md). Any other platform has no path and
+    raises.
+    """
+    if platform == "cpu":
+        return cfg
+    if platform == "gpu":
+        return dataclasses.replace(
+            cfg, decoder=dataclasses.replace(cfg.decoder, bf16=True))
+    raise ValueError(f"no field path for platform {platform!r}")
 
 
 def query_color(params, pts, cfg, consts):
@@ -238,19 +211,23 @@ def query_color(params, pts, cfg, consts):
 # Rendering
 # ---------------------------------------------------------------------------
 
+def first_surface_mask(sdf: jnp.ndarray, z_vals: jnp.ndarray,
+                       cfg: FieldConfig) -> jnp.ndarray:
+    """1.0 on the samples up to one truncation past each ray's first SDF
+    sign change, else 0.0 ([N, S])."""
+    signs = sdf[:, 1:] * sdf[:, :-1]
+    mask = jnp.where(signs < 0.0, 1.0, 0.0)
+    inds = jnp.argmax(mask, axis=1)[:, None]
+    z_min = jnp.take_along_axis(z_vals, inds, axis=1)  # first surface
+    return jnp.where(z_vals < z_min + cfg.sc_factor * cfg.trunc, 1.0, 0.0)
+
+
 def sdf2weights(sdf: jnp.ndarray, z_vals: jnp.ndarray,
                 cfg: FieldConfig) -> jnp.ndarray:
     """SDF -> normalized compositing weights with first-crossing masking."""
     weights = (jax.nn.sigmoid(sdf / cfg.trunc)
                * jax.nn.sigmoid(-sdf / cfg.trunc))
-
-    signs = sdf[:, 1:] * sdf[:, :-1]
-    mask = jnp.where(signs < 0.0, 1.0, 0.0)
-    inds = jnp.argmax(mask, axis=1)[:, None]
-    z_min = jnp.take_along_axis(z_vals, inds, axis=1)  # first surface
-    mask = jnp.where(z_vals < z_min + cfg.sc_factor * cfg.trunc, 1.0, 0.0)
-
-    weights = weights * mask
+    weights = weights * first_surface_mask(sdf, z_vals, cfg)
     return weights / (jnp.sum(weights, axis=-1, keepdims=True) + 1e-8)
 
 
@@ -289,8 +266,7 @@ def _merge_sorted_z(z_samples: jnp.ndarray,
 
     ranks = jnp.concatenate([rank_a, rank_b], axis=-1)     # [N, M] perm
     vals = jnp.concatenate([z_samples, z_uniform], axis=-1)
-    # materialize the permutation as a one-hot contraction (a scatter
-    # serializes on TPU; this is a tiny batched matmul instead)
+    # materialize the permutation as a one-hot contraction
     M = ranks.shape[-1]
     onehot = (ranks[..., None] == jnp.arange(M)[None, None, :])
     return jnp.einsum("nj,njk->nk", vals, onehot.astype(vals.dtype))
@@ -387,26 +363,14 @@ def forward_losses(params: Dict, key: jax.Array, rays_o: jnp.ndarray,
 # Transposed (points-minor) training forward
 # ---------------------------------------------------------------------------
 #
-# The row-major pipeline above carries [N, 3] points and [N, 10] raw
-# outputs; on TPU both put the tiny channel axis on lanes, so every
-# tensor tiles at 3/128 (resp. 10/128) occupancy and the relayouts in
-# and out of the fused kernel cost as much as the kernel itself
-# (BASELINE.md "training glue"). The _T pipeline keeps the point axis
-# minor end to end — rays [3, N], points [3, N*S], raw [10+, N, S] —
-# which is also the fused kernel's native layout (ops/field_pallas.py
-# field_query_diff_T), so nothing is ever transposed at size. Loss
-# semantics are identical to forward_losses (same reductions, same
-# masks; parity-tested in tests/test_transposed_losses.py).
+# The same pipeline with the point axis minor end to end — rays [3, N],
+# points [3, N*S], raw [10+, N, S]. Loss semantics are identical to
+# forward_losses (same reductions, same masks; parity-tested in
+# tests/test_transposed_losses.py).
 
 def query_color_sdf_T(params: Dict, ptsT_norm: jnp.ndarray,
                       cfg: FieldConfig) -> jnp.ndarray:
     """Decode pre-normalized points [3, M] -> [5 + n_class, M]."""
-    xT = ptsT_norm / cfg.norm_factor
-    if cfg.enc == "Triplane" and cfg.use_pallas:
-        from ..ops.field_pallas import field_query_diff_T
-        return field_query_diff_T(params, xT, cfg.tri.resolutions,
-                                  cfg.freq.n_frequencies,
-                                  cfg.decoder.n_class)
     return query_color_sdf(params, ptsT_norm.T, cfg).T
 
 

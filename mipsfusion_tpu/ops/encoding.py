@@ -1,7 +1,7 @@
 """Multiresolution hash-grid + frequency positional encodings (pure JAX).
 
 This replaces the reference's tiny-cuda-nn CUDA encodings
-(/root/reference/model/encodings.py:6-52) with a TPU-native design:
+(/root/reference/model/encodings.py:6-52):
 
   * The hash table is a single HBM-resident array of shape [L, T, F]
     (uniform per-level capacity so submaps can be stacked/vmapped along a
@@ -156,19 +156,13 @@ def frequency_encode(x: jnp.ndarray, cfg: FrequencyConfig) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Triplane (TensoRF-style) multiscale encoding — the TPU-native fast path
+# Triplane (TensoRF-style) multiscale encoding
 # ---------------------------------------------------------------------------
 #
-# Rationale (measured on TPU v5e): XLA lowers per-point table gathers and
-# scatter-adds to ~serial loops (19.6M gathers ~ 146 ms, scatter-add
-# ~ 1.2 s), so an instant-ngp hash grid — built around cheap GPU random
-# access + atomics — cannot be fast on TPU. The TPU-native equivalent
-# factorizes each scale into three axis-aligned feature planes; bilinear
-# interpolation becomes two MXU matmuls against 2-sparse one-hot interp
-# matrices, and the backward into the planes is the transposed matmul —
-# no gather, no scatter, pure MXU. Replaces tiny-cuda-nn's role
-# (/root/reference/model/encodings.py:13-25) with equal spatial
-# resolution (finest plane == tcnn desired_resolution 256).
+# Each scale factorizes into three axis-aligned feature planes, sampled
+# by bilinear interpolation (a gather of 4 taps per plane; its gradient
+# is a scatter-add of 4 rows), plus optional CP line factors. Replaces
+# tiny-cuda-nn's role (/root/reference/model/encodings.py:13-25).
 
 @dataclasses.dataclass(frozen=True)
 class TriplaneConfig:
@@ -176,9 +170,8 @@ class TriplaneConfig:
     n_features: int = 4          # features per plane per scale
     # optional CP (rank-decomposed line) component: three 1D factor
     # lines of length cp_resolution with cp_components channels whose
-    # per-point elementwise product is appended to the features.
-    # FLOPs scale with R*C (vs R*R*F for a plane), so a 512-line CP
-    # term adds finer detail than a 256 plane at ~1/16 the MACs.
+    # per-point elementwise product is appended to the features; it
+    # adds fine detail along each axis for a table of 3*R*C values.
     cp_resolution: int = 0       # 0 disables the CP term
     cp_components: int = 32
 
@@ -211,47 +204,39 @@ def init_triplane(key: jax.Array, cfg: TriplaneConfig,
     return params
 
 
-def _interp_matrix(u: jnp.ndarray, R: int) -> jnp.ndarray:
-    """1D linear-interp weights as a 2-sparse one-hot matrix [N, R].
-
-    u in [0,1]; rows have weight (1-w) at floor and w at floor+1.
-    Built with broadcast compares (VPU) so the downstream contraction is
-    a dense MXU matmul.
-    """
+def _interp_taps(u: jnp.ndarray, R: int):
+    """Linear-interpolation taps of coords u in [0,1] on an R-sample
+    axis: (lower index, upper index, upper weight)."""
     pu = jnp.clip(u * (R - 1), 0.0, R - 1 - 1e-6)
-    i0 = jnp.floor(pu)
-    w = (pu - i0)[:, None]
-    iota = jax.lax.broadcasted_iota(jnp.float32, (1, R), 1)
-    d0 = (iota == i0[:, None]).astype(u.dtype)
-    d1 = (iota == (i0[:, None] + 1.0)).astype(u.dtype)
-    return d0 * (1.0 - w) + d1 * w
+    i0f = jnp.floor(pu)
+    i0 = i0f.astype(jnp.int32)
+    return i0, jnp.minimum(i0 + 1, R - 1), pu - i0f
 
 
 def _plane_lookup(plane: jnp.ndarray, u: jnp.ndarray,
                   v: jnp.ndarray) -> jnp.ndarray:
-    """Bilinear interp on one plane [R, R, F] at N (u, v) -> [N, F].
-
-    out[n] = Wu[n] @ plane @ Wv[n]^T, evaluated as one [N,R]x[R,R*F]
-    matmul plus a weighted reduction — MXU-native in both directions.
-    """
+    """Bilinear interp on one plane [R, R, F] at N (u, v) -> [N, F]."""
     R, _, F = plane.shape
-    Wu = _interp_matrix(u, R)                       # [N, R]
-    Wv = _interp_matrix(v, R)                       # [N, R]
-    A = jnp.matmul(Wu, plane.reshape(R, R * F),
-                   preferred_element_type=jnp.float32)  # [N, R*F]
-    A = A.reshape(-1, R, F)
-    return jnp.sum(A * Wv[:, :, None], axis=1)      # [N, F]
+    flat = plane.reshape(R * R, F)
+    u0, u1, wu = _interp_taps(u, R)
+    v0, v1, wv = _interp_taps(v, R)
+    out = 0.0
+    for iu, iv, w in ((u0, v0, (1 - wu) * (1 - wv)), (u1, v0, wu * (1 - wv)),
+                      (u0, v1, (1 - wu) * wv), (u1, v1, wu * wv)):
+        out = out + flat[iu * R + iv] * w[:, None]
+    return out
 
 
 def _line_lookup(line: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
     """Linear interp on a 1D factor line [R, C] at N coords -> [N, C]."""
-    R = line.shape[0]
-    W = _interp_matrix(u, R)                         # [N, R], 2-sparse
-    return jnp.matmul(W, line, preferred_element_type=jnp.float32)
+    i0, i1, w = _interp_taps(u, line.shape[0])
+    return line[i0] * (1 - w)[:, None] + line[i1] * w[:, None]
 
 
-def _triplane_chunk(planes: dict, x: jnp.ndarray,
+def triplane_encode(planes: dict, x: jnp.ndarray,
                     cfg: TriplaneConfig) -> jnp.ndarray:
+    """Encode points x [N, 3] in [0,1]^3 -> [N, out_dim] (the 3 planes of
+    a scale summed, scales and the CP product concatenated)."""
     feats = []
     for i, R in enumerate(cfg.resolutions):
         p = planes[f"s{i}"]                          # [3, R, R, F]
@@ -266,20 +251,3 @@ def _triplane_chunk(planes: dict, x: jnp.ndarray,
         fz = _line_lookup(cp[2], x[:, 2])
         feats.append(fx * fy * fz)
     return jnp.concatenate(feats, axis=-1)
-
-
-def triplane_encode(planes: dict, x: jnp.ndarray, cfg: TriplaneConfig,
-                    chunk: int = 16384) -> jnp.ndarray:
-    """Encode points x [N, 3] in [0,1]^3 -> [N, out_dim].
-
-    Chunked over N to bound the [chunk, R, F] intermediate in VMEM/HBM;
-    differentiable w.r.t. planes with matmul-only backward.
-    """
-    N = x.shape[0]
-    if N <= chunk:
-        return _triplane_chunk(planes, x, cfg)
-    pad = (-N) % chunk
-    xp = jnp.pad(x, ((0, pad), (0, 0)))
-    xc = xp.reshape(-1, chunk, 3)
-    out = jax.lax.map(lambda xx: _triplane_chunk(planes, xx, cfg), xc)
-    return out.reshape(-1, cfg.out_dim)[:N]

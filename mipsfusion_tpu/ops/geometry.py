@@ -10,8 +10,8 @@ Parity notes (semantics re-derived, not copied):
 
 Everything here is pure jnp and safe inside jit.
 
-All matmuls in this module run at Precision.HIGHEST: on TPU the default
-matmul precision is bfloat16, which is fine for the neural field but
+All matmuls in this module run at Precision.HIGHEST: a reduced-precision
+matmul (bf16, or TF32 on a GPU) is fine for the neural field but
 corrupts pose chains (3x3/4x4 products) at the 1e-3 level — far above
 the SDF truncation scale the tracker optimizes against.
 """
@@ -25,7 +25,7 @@ _HI = jax.lax.Precision.HIGHEST
 
 
 def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Full-f32-precision matmul (TPU default would be bf16)."""
+    """Full-f32-precision matmul, whatever the default precision."""
     return jnp.matmul(a, b, precision=_HI)
 
 
@@ -178,7 +178,7 @@ def se3_exp(xi: jnp.ndarray) -> jnp.ndarray:
     theta2_safe = jnp.where(small, 1.0, theta2)
     theta = jnp.sqrt(theta2_safe)
     wx = _skew(phi)
-    # exact identity avoids a (bf16-on-TPU) matmul: wx^2 = phi phi^T - theta^2 I
+    # exact identity avoids a reduced-precision matmul: wx^2 = phi phi^T - theta^2 I
     wx2 = phi[..., :, None] * phi[..., None, :] - theta2[..., None, None] * jnp.broadcast_to(jnp.eye(3, dtype=xi.dtype), wx.shape)
     A = jnp.where(small, 1.0 - theta2 / 6.0, jnp.sin(theta) / theta)
     B = jnp.where(small, 0.5 - theta2 / 24.0, (1.0 - jnp.cos(theta)) / theta2_safe)

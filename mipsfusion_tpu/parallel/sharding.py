@@ -1,13 +1,13 @@
 """Multi-chip parallelism: device mesh, shardings, and sharded train steps.
 
 The reference has no distributed code (its "parallelism" is two OS
-processes on one GPU, SURVEY.md §2.11); scaling here is TPU-native:
+processes on one GPU, SURVEY.md §2.11); scaling here has two axes:
 
   * **Ray data-parallelism (DP)** — the mapping/BA workload is
     embarrassingly parallel over rays. The ray batch is sharded along
-    the mesh's ``data`` axis, field params are replicated, and the
-    gradient all-reduce rides ICI (inserted automatically by XLA from
-    the sharding annotations — no explicit collectives).
+    the mesh's ``data`` axis, field params are replicated, and XLA
+    inserts the gradient all-reduce from the sharding annotations (no
+    explicit collectives).
 
   * **Submap parallelism (the reference's "expert" analog)** — the
     stacked submap parameter axis [M, ...] is sharded across devices on
@@ -127,6 +127,22 @@ def sharded_map_step(mesh: Mesh, fcfg: sr.FieldConfig, lw: sr.LossWeights,
 # Sharded submap refinement (submap-axis parallelism)
 # ---------------------------------------------------------------------------
 
+def refine_loss_and_grads(params, key, rays, consts_lo, consts_inv, *,
+                          fcfg: sr.FieldConfig, lw: sr.LossWeights):
+    """One submap's refinement loss on its camera-frame ray batch
+    [N, 7] and the gradient wrt its field params."""
+    consts = sr.FieldConsts(consts_lo, consts_inv)
+
+    def loss_fn(p):
+        dirsT = rays[:, :3].T
+        ret = sr.forward_losses_T(
+            p, key, jnp.zeros_like(dirsT), dirsT,
+            rays[:, 3:6].T, rays[:, 6:7], fcfg, consts)
+        return sr.total_loss(ret, lw)
+
+    return jax.value_and_grad(loss_fn)(params)
+
+
 def make_sharded_refine_step(mesh: Mesh, fcfg: sr.FieldConfig,
                              lw: sr.LossWeights, opt):
     """Build a jitted step refining M stacked submaps concurrently.
@@ -139,18 +155,7 @@ def make_sharded_refine_step(mesh: Mesh, fcfg: sr.FieldConfig,
     """
     ssh = submap_sharded(mesh)
     rep = replicated(mesh)
-
-    def one(params, key, rays, consts_lo, consts_inv):
-        consts = sr.FieldConsts(consts_lo, consts_inv)
-
-        def loss_fn(p):
-            dirsT = rays[:, :3].T
-            ret = sr.forward_losses_T(
-                p, key, jnp.zeros_like(dirsT), dirsT,
-                rays[:, 3:6].T, rays[:, 6:7], fcfg, consts)
-            return sr.total_loss(ret, lw)
-
-        return jax.value_and_grad(loss_fn)(params)
+    one = partial(refine_loss_and_grads, fcfg=fcfg, lw=lw)
 
     @partial(jax.jit,
              in_shardings=(ssh, ssh, rep, ssh, ssh, ssh),

@@ -1,13 +1,13 @@
 """Point-to-plane ICP in pure JAX (loop-closure pose rectification).
 
-TPU-native replacement for the reference's open3d ICP call
+Replacement for the reference's open3d ICP call
 (/root/reference/PoseCorrector.py:149-163). Differences by design:
 
   * normals are estimated by k-NN PCA over the target cloud (open3d's
     estimate_normals equivalent), as one batched eigendecomposition;
   * correspondences are brute-force nearest neighbors (clouds are
     downsampled keyframe back-projections, a few thousand points, so the
-    [N, M] distance matrix is a single MXU-friendly matmul);
+    [N, M] distance matrix is a single matmul);
   * the solve is a fixed iteration count of damped point-to-plane
     Gauss-Newton steps inside one jit (static shapes, masked
     correspondences instead of dynamic rejection).

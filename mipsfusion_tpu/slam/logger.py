@@ -1,15 +1,17 @@
-"""Logger: full-image re-rendering, comparison grids, trajectory plots.
+"""Logger: full-image re-rendering and GT-vs-render comparison grids.
 
 Parity with the reference Logger's observability outputs
-(/root/reference/Logger.py:193-262 render_full_img / img_render_save;
-/root/reference/tools/eval_ate.py:103-131 plot_traj): volumetric
-re-render of a full frame through the active field, a 2x2 GT-vs-render
-comparison PNG, and a top-down trajectory plot.
+(/root/reference/Logger.py:193-262 render_full_img / img_render_save):
+volumetric re-render of a full frame through the active field and a 2x2
+GT-vs-render comparison PNG, written with numpy and zlib. Trajectories
+are saved as TUM text (eval/ate.py); ``tools/eval_ate.py`` plots them.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Dict, Optional
 
 import jax
@@ -43,17 +45,32 @@ def render_full_img(params: Dict, fcfg: sr.FieldConfig,
     return rgb, depth
 
 
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an [H, W, 3] image with values in [0, 1] as an 8-bit RGB PNG."""
+    rgb = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)],
+                         axis=1).tobytes()        # filter type 0 per row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
+
+
 def img_render_save(params: Dict, fcfg: sr.FieldConfig,
                     consts: sr.FieldConsts, c2w_local: jnp.ndarray,
                     rgb_gt: np.ndarray, depth_gt: np.ndarray,
                     rays_dir_img: jnp.ndarray, out_dir: str,
                     frame_id: int, key: Optional[jax.Array] = None):
-    """2x2 comparison grid: GT rgb/depth vs rendered rgb/depth
+    """2x2 comparison grid, GT rgb | GT depth over rendered rgb |
+    rendered depth, depth in grey scaled to the GT maximum
     (ref Logger.img_render_save :221-262). Returns (psnr, depth_l1)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
     key = key if key is not None else jax.random.PRNGKey(0)
     rgb, depth = render_full_img(params, fcfg, consts, c2w_local,
                                  jnp.asarray(rays_dir_img),
@@ -64,38 +81,11 @@ def img_render_save(params: Dict, fcfg: sr.FieldConfig,
     depth_l1 = float(np.abs(depth - depth_gt)[valid].mean()) \
         if valid.any() else 0.0
 
-    fig, axes = plt.subplots(2, 2, figsize=(10, 7))
     vmax = max(float(depth_gt.max()), 1e-3)
-    axes[0, 0].imshow(np.clip(rgb_gt, 0, 1)); axes[0, 0].set_title("GT RGB")
-    axes[0, 1].imshow(depth_gt, cmap="plasma", vmin=0, vmax=vmax)
-    axes[0, 1].set_title("GT depth")
-    axes[1, 0].imshow(np.clip(rgb, 0, 1))
-    axes[1, 0].set_title(f"render RGB (psnr {psnr:.1f})")
-    axes[1, 1].imshow(depth, cmap="plasma", vmin=0, vmax=vmax)
-    axes[1, 1].set_title(f"render depth (L1 {depth_l1:.3f} m)")
-    for ax in axes.ravel():
-        ax.axis("off")
+    grey = lambda d: np.repeat((d / vmax)[..., None], 3, axis=-1)  # noqa
+    grid = np.concatenate([
+        np.concatenate([rgb_gt, grey(depth_gt)], axis=1),
+        np.concatenate([rgb, grey(depth)], axis=1)], axis=0)
     os.makedirs(out_dir, exist_ok=True)
-    fig.savefig(os.path.join(out_dir, f"render_{frame_id:05d}.png"),
-                dpi=90, bbox_inches="tight")
-    plt.close(fig)
+    write_png(os.path.join(out_dir, f"render_{frame_id:05d}.png"), grid)
     return psnr, depth_l1
-
-
-def plot_traj(gt: np.ndarray, est: np.ndarray, out_path: str,
-              title: str = "") -> None:
-    """Top-down (x, z) trajectory plot (ref tools/eval_ate.py:103-131)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    fig, ax = plt.subplots(figsize=(7, 7))
-    ax.plot(gt[:, 0, 3], gt[:, 2, 3], "k-", label="ground truth")
-    ax.plot(est[:, 0, 3], est[:, 2, 3], "b-", label="estimated")
-    ax.set_xlabel("x [m]")
-    ax.set_ylabel("z [m]")
-    ax.legend()
-    ax.set_title(title)
-    ax.set_aspect("equal")
-    fig.savefig(out_path, dpi=90, bbox_inches="tight")
-    plt.close(fig)

@@ -1,6 +1,6 @@
 """Mapping: first-frame / new-submap initialization and local BA.
 
-TPU-native counterparts of the reference's mapping stages:
+Counterparts of the reference's mapping stages:
 
   * ``init_submap_fit`` — the 500-iteration single-frame fit used for
     the first frame and each newly created submap
@@ -206,8 +206,8 @@ def local_ba(field_params: Dict, map_opt_state, key: jax.Array,
     ``ray_sharding``: optional NamedSharding for ray data-parallelism —
     the sampled per-iteration batch (rays, poses, targets) is sharded
     across the mesh's data axis while field + pose params stay
-    replicated; the map and pose gradient all-reduces ride ICI
-    (inserted by XLA from the constraint). n_total must be divisible by
+    replicated; XLA inserts the map and pose gradient all-reduces from
+    the constraint. n_total must be divisible by
     the data-axis size.
     """
     K, R, _ = kf_rays.shape
@@ -252,7 +252,7 @@ def local_ba(field_params: Dict, map_opt_state, key: jax.Array,
         if ray_sharding is not None:
             # shard the per-iteration batch (and its pose-slot indices)
             # across the mesh's data axis; params stay replicated, so
-            # the map + pose gradient all-reduce rides ICI
+            # XLA inserts the map + pose gradient all-reduce
             rays = jax.lax.with_sharding_constraint(rays, ray_sharding)
             src = jax.lax.with_sharding_constraint(src, ray_sharding)
 

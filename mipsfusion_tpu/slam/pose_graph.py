@@ -1,6 +1,6 @@
 """Pose-graph optimization over submap anchor poses (loop closure).
 
-TPU-native replacement for the reference's pypose Levenberg-Marquardt
+Replacement for the reference's pypose Levenberg-Marquardt
 pipeline (/root/reference/PoseCorrector.py:173-216, model/poseGraph.py:8-46):
 
   * nodes  = world poses of each submap's first keyframe;

@@ -1,6 +1,6 @@
 """SLAM state: one fixed-capacity device-resident pytree.
 
-TPU-native re-expression of the reference's shared-memory tensor zoo
+Re-expression of the reference's shared-memory tensor zoo
 (/root/reference/mipsfusion.py:62-124, /root/reference/model/keyframeSet.py:11-71):
 every dynamically-grown torch tensor becomes a fixed-capacity jnp array
 with a validity convention, so the whole SLAM state is a single pytree

@@ -1,6 +1,6 @@
 """Camera tracking: particle-swarm RO + gradient GO, each one jitted call.
 
-TPU-native counterparts of the reference's two trackers:
+Counterparts of the reference's two trackers:
 
   * RO — the ROSEFusion-style gradient-free random optimizer
     (/root/reference/RandomOptimizer.py:10-227). The pre-sampled particle
@@ -44,17 +44,17 @@ class ROConfig:
     n_cols: int = 24
     n_iters: int = 5
     sdf_weight: float = 1000.0
-    # Two-stage fitness screen (TPU redesign, OFF by default = exact
+    # Two-stage fitness screen (beyond the reference, OFF by default = exact
     # reference semantics): stage A scores ALL particles on an
     # evenly-strided ``screen_px`` subset of the pixel grid, stage B
     # re-scores the ``screen_keep`` best (identity always kept — it
     # anchors f0) on the full grid; non-survivors get zero APS weight.
     # Cuts the dominant [P*n] field-query batch ~2x at equal particle
     # and pixel budgets. Validated on the fast-motion sweep + outback
-    # stress scenes before adoption (BASELINE.md round-5 A/B).
+    # stress scenes before adoption.
     screen_px: int = 0
     screen_keep: int = 0
-    # Adaptive search escalation (TPU rebuild robustness lever, OFF by
+    # Adaptive search escalation (robustness lever beyond the reference, OFF by
     # default): scale the per-frame INITIAL search size by
     # clip(prev_loss / loss_EWMA, 1, escalate). The reference's search
     # size adapts within a frame (mean-SDF rescale) but every frame
@@ -118,6 +118,44 @@ def _pose_6d_to_7d(p6: jnp.ndarray) -> jnp.ndarray:
     return jnp.concatenate([qw, p6], axis=-1)
 
 
+def ro_world_points(rot: jnp.ndarray, trans: jnp.ndarray,
+                    pts_cam: jnp.ndarray) -> jnp.ndarray:
+    """Camera points [n, 3] under P poses (rot [P,3,3], trans [P,3]) as
+    [3, P*n] points, particle-major."""
+    ptsT = pts_cam.T                                              # [3,n]
+    rows = [jnp.matmul(rot[:, i, :], ptsT,
+                       precision=jax.lax.Precision.HIGHEST)
+            + trans[:, i:i + 1] for i in range(3)]
+    return jnp.stack(rows, 0).reshape(3, -1)
+
+
+def ro_fitness(field_params: Dict, fcfg: sr.FieldConfig,
+               consts: sr.FieldConsts, rot: jnp.ndarray, trans: jnp.ndarray,
+               pts_cam: jnp.ndarray, valid: jnp.ndarray, sdf_weight: float,
+               ray_sharding=None):
+    """Particle fitness of RO (ref RandomOptimizer.py:113-131): the mean
+    |SDF| (meters) of the camera points under each of the P candidate
+    poses (rot [P,3,3], trans [P,3]), and that mean times
+    ``sdf_weight``. Returns (fitness [P], mean_sdf [P]).
+
+    The world points are built directly in points-minor layout
+    (ro_world_points). With ``ray_sharding`` the point axis is sharded
+    over the mesh's data axis.
+    """
+    P = rot.shape[0]
+    worldT = ro_world_points(rot, trans, pts_cam)
+    if ray_sharding is not None and \
+            worldT.shape[1] % ray_sharding.mesh.size == 0:
+        from jax.sharding import NamedSharding, PartitionSpec
+        worldT = jax.lax.with_sharding_constraint(
+            worldT, NamedSharding(ray_sharding.mesh,
+                                  PartitionSpec(None, "data")))
+    sdf = sr.run_network_sdf_T(field_params, worldT, fcfg, consts)
+    sdf = sdf.reshape(P, -1) * fcfg.trunc
+    mean_sdf = jnp.mean(valid[None, :] * jnp.abs(sdf), axis=-1)      # [P]
+    return mean_sdf * sdf_weight, mean_sdf
+
+
 def ro_optimize(field_params: Dict, fcfg: sr.FieldConfig,
                 consts: sr.FieldConsts, rcfg: ROConfig,
                 pst: jnp.ndarray, depth_img: jnp.ndarray,
@@ -135,31 +173,13 @@ def ro_optimize(field_params: Dict, fcfg: sr.FieldConfig,
     ``ray_sharding``: optional NamedSharding over the mesh's data axis —
     the [3, P*n] fitness batch (the per-frame hot loop 1, ref
     RandomOptimizer.py:113-131) is sharded across devices with the
-    field params replicated; the per-particle |SDF| means reduce over
-    ICI (XLA inserts the collectives from the constraint).
+    field params replicated; XLA inserts the collectives for the
+    per-particle |SDF| means.
     """
 
     def fitness(rot, trans, pts_cam, valid):
-        # world points built directly in the kernel's points-minor
-        # [3, P*n] layout (per-axis [P,3]@[3,n] dots + a leading-axis
-        # stack) — the einsum->[P,n,3]->transpose route costs more in
-        # relayouts than the fused SDF query itself
-        P = rot.shape[0]
-        ptsT = pts_cam.T                                          # [3,n]
-        rows = [jnp.matmul(rot[:, i, :], ptsT,
-                           precision=jax.lax.Precision.HIGHEST)
-                + trans[:, i:i + 1] for i in range(3)]
-        worldT = jnp.stack(rows, 0).reshape(3, -1)                # [3,P*n]
-        if ray_sharding is not None and \
-                worldT.shape[1] % ray_sharding.mesh.size == 0:
-            from jax.sharding import NamedSharding, PartitionSpec
-            worldT = jax.lax.with_sharding_constraint(
-                worldT, NamedSharding(ray_sharding.mesh,
-                                      PartitionSpec(None, "data")))
-        sdf = sr.run_network_sdf_T(field_params, worldT, fcfg, consts)
-        sdf = sdf.reshape(P, -1) * fcfg.trunc
-        mean_sdf = jnp.mean(valid[None, :] * jnp.abs(sdf), axis=-1)  # [P]
-        return mean_sdf * rcfg.sdf_weight, mean_sdf
+        return ro_fitness(field_params, fcfg, consts, rot, trans, pts_cam,
+                          valid, rcfg.sdf_weight, ray_sharding)
 
     def body(i, carry):
         rot, trans, search_size = carry
@@ -281,10 +301,10 @@ class GOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DriftGateConfig:
-    """Frame-to-keyframe geometric drift gate + ICP rescue (TPU rebuild
-    robustness lever, OFF by default = exact reference semantics).
+    """Frame-to-keyframe geometric drift gate + ICP rescue (robustness lever
+    beyond the reference, OFF by default = exact reference semantics).
 
-    The round-5 multi-seed study (BASELINE.md) showed full-budget
+    An earlier multi-seed study showed full-budget
     fast-motion divergence is a gradual basin slide that (a) every
     EWMA-relative loss gate absorbs, and (b) the neural map itself
     absorbs within ~1 BA cycle — tools/diag_absres.py measured the
@@ -425,7 +445,7 @@ def go_optimize(field_params: Dict, fcfg: sr.FieldConfig,
             rays_d_camT.shape[1] % ray_sharding.mesh.size == 0:
         # GO ray-DP (hot loop 2, ref mipsfusion.py:490-556): rays and
         # targets sharded over the data axis, pose params replicated —
-        # the pose-gradient all-reduce rides ICI
+        # XLA inserts the pose-gradient all-reduce
         from jax.sharding import NamedSharding, PartitionSpec
         colsh = NamedSharding(ray_sharding.mesh,
                               PartitionSpec(None, "data"))

@@ -1,6 +1,6 @@
 // Native iso-surface extraction with TSDF truncation semantics.
 //
-// TPU-native framework's counterpart of the reference's NumpyMarchingCubes
+// Counterpart of the reference's NumpyMarchingCubes
 // extension (/root/reference/external/NumpyMarchingCubes/marching_cubes/src/
 // marching_cubes.cpp:70-238): TSDF sampling with invalid-voxel rejection
 // (|d| >= truncation or non-finite), iso-surface triangulation, vertex

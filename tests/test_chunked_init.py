@@ -2,7 +2,7 @@
 
 The reference runs the 500-iter first fit of a new submap CONCURRENTLY
 with tracking in the mapping process (ref mipsfusion.py:198-222, the
-tracking process does not wait at :470-576). The sequenced TPU loop
+tracking process does not wait at :470-576). The sequenced loop
 re-expresses that overlap by splitting the fit into fixed-size chunks
 interleaved with the tracked frames (system.py active_submap_switch_new
 / _drain_init_chunk / _flush_pending_init). These tests pin the

@@ -196,7 +196,7 @@ def test_training_reduces_loss():
 
 
 # ---------------------------------------------------------------------------
-# Triplane encoding (TPU-native fast path)
+# Triplane encoding
 # ---------------------------------------------------------------------------
 
 def test_triplane_matches_direct_bilinear():
@@ -244,9 +244,12 @@ def test_triplane_chunking_consistent():
     planes = {k: jax.random.normal(jax.random.PRNGKey(1), v.shape)
               for k, v in init_triplane(jax.random.PRNGKey(0), cfg).items()}
     x = jax.random.uniform(jax.random.PRNGKey(2), (100, 3))
-    full = triplane_encode(planes, x, cfg, chunk=1000)
-    chunked = triplane_encode(planes, x, cfg, chunk=32)
-    np.testing.assert_allclose(np.asarray(full), np.asarray(chunked),
+    full = triplane_encode(planes, x, cfg)
+    # each point's encoding is independent of the batch it comes in
+    parts = [triplane_encode(planes, x[s:s + 32], cfg)
+             for s in range(0, 100, 32)]
+    np.testing.assert_allclose(np.asarray(full),
+                               np.concatenate([np.asarray(q) for q in parts]),
                                atol=1e-5)
 
 
@@ -293,3 +296,64 @@ def test_merge_sorted_z_equals_sort():
     merged1 = np.asarray(_merge_sorted_z(jnp.asarray(a1), jnp.asarray(b)))
     ref1 = np.sort(np.concatenate([a1, b], axis=-1), axis=-1)
     np.testing.assert_array_equal(merged1, ref1)
+
+
+def _np_interp(u, R):
+    pu = np.clip(u * (R - 1), 0.0, R - 1 - 1e-6)
+    i0 = np.floor(pu).astype(int)
+    return i0, np.minimum(i0 + 1, R - 1), pu - i0
+
+
+def test_triplane_cp_lines_match_numpy():
+    """The CP term is the product over axes of a linear interpolation
+    of each factor line."""
+    import jax, jax.numpy as jnp
+    from mipsfusion_tpu.ops.encoding import (TriplaneConfig, init_triplane,
+                                             triplane_encode)
+    cfg = TriplaneConfig(resolutions=(8,), n_features=2, cp_resolution=20,
+                         cp_components=5)
+    planes = {k: jax.random.normal(jax.random.PRNGKey(i), v.shape)
+              for i, (k, v) in enumerate(init_triplane(
+                  jax.random.PRNGKey(0), cfg).items())}
+    x = np.random.default_rng(1).uniform(-0.1, 1.1, (40, 3)).astype(
+        np.float32)
+    out = np.asarray(triplane_encode(planes, jnp.asarray(x), cfg))
+    cp = np.asarray(planes["cp"])
+    expected = np.ones((40, 5))
+    for d in range(3):
+        i0, i1, w = _np_interp(x[:, d], 20)
+        expected *= cp[d][i0] * (1 - w)[:, None] + cp[d][i1] * w[:, None]
+    np.testing.assert_allclose(out[:, 2:], expected, rtol=1e-5, atol=1e-5)
+
+
+def test_triplane_point_gradient_matches_numpy():
+    """d(encoding)/dx of one plane is the bilinear weights' derivative:
+    (p[i1, j] - p[i0, j]) * (R - 1) blended along the other axis."""
+    import jax, jax.numpy as jnp
+    from mipsfusion_tpu.ops.encoding import (TriplaneConfig, init_triplane,
+                                             triplane_encode)
+    cfg = TriplaneConfig(resolutions=(6,), n_features=1)
+    planes = {"s0": jax.random.normal(jax.random.PRNGKey(3),
+                                      init_triplane(jax.random.PRNGKey(0),
+                                                    cfg)["s0"].shape)}
+    x = np.asarray([[0.31, 0.57, 0.83]], np.float32)
+    g = np.asarray(jax.grad(lambda xx: triplane_encode(
+        planes, xx, cfg).sum())(jnp.asarray(x)))[0]
+    p = np.asarray(planes["s0"])[..., 0]
+    R = 6
+
+    def dplane(plane, u, v):          # (d/du, d/dv) of bilinear(plane)
+        i0, i1, wu = _np_interp(np.asarray([u]), R)
+        j0, j1, wv = _np_interp(np.asarray([v]), R)
+        i0, i1, j0, j1, wu, wv = (a[0] for a in (i0, i1, j0, j1, wu, wv))
+        du = ((plane[i1, j0] - plane[i0, j0]) * (1 - wv)
+              + (plane[i1, j1] - plane[i0, j1]) * wv) * (R - 1)
+        dv = ((plane[i0, j1] - plane[i0, j0]) * (1 - wu)
+              + (plane[i1, j1] - plane[i1, j0]) * wu) * (R - 1)
+        return du, dv
+
+    xy, xz, yz = (dplane(p[0], x[0, 0], x[0, 1]),
+                  dplane(p[1], x[0, 0], x[0, 2]),
+                  dplane(p[2], x[0, 1], x[0, 2]))
+    expected = [xy[0] + xz[0], xy[1] + yz[0], xz[1] + yz[1]]
+    np.testing.assert_allclose(g, expected, rtol=1e-4, atol=1e-5)

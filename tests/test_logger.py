@@ -1,4 +1,4 @@
-"""Logger outputs: full-image render, comparison grid, trajectory plot."""
+"""Logger outputs: full-image render and comparison grid."""
 
 import os
 
@@ -56,8 +56,5 @@ def test_img_render_save_and_plot(tmp_path):
     assert os.path.exists(tmp_path / "render_00003.png")
     assert np.isfinite(psnr) and np.isfinite(depth_l1)
 
-    gt = np.tile(np.eye(4), (10, 1, 1))
-    est = gt.copy()
-    est[:, 0, 3] = np.linspace(0, 1, 10)
-    logger.plot_traj(gt, est, str(tmp_path / "traj.png"), "test")
-    assert os.path.exists(tmp_path / "traj.png")
+    with open(tmp_path / "render_00003.png", "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"

@@ -3,7 +3,7 @@
 VERDICT r2 item 1: the mapping hot loop (ref mipsfusion.py:259-370) must
 run data-parallel over rays on a multi-chip mesh IN THE LIVE SYSTEM —
 params replicated, the per-iteration ray batch sharded over the data
-axis, gradient all-reduce riding ICI. This test drives the full system
+axis, gradient all-reduce inserted by XLA. This test drives the full system
 both ways and demands ATE parity.
 """
 

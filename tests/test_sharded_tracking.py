@@ -20,9 +20,9 @@ from test_slam_single import tiny_config
 
 
 def triplane_cfg(n_frames=8):
-    """tiny_config on the FLAGSHIP Triplane+CP encoding (XLA fallback on
-    the CPU mesh — system.py only flips use_pallas on TPU backends).
-    Tiny plane/line resolutions keep the virtual-mesh compiles fast."""
+    """tiny_config on the configs' Triplane+CP encoding (the plain path
+    the CPU platform runs). Tiny plane/line resolutions keep the
+    virtual-mesh compiles fast."""
     cfg = tiny_config(n_frames)
     cfg["grid"] = {"enc": "Triplane", "tri_resolutions": [16, 32],
                    "tri_features": 4, "cp_resolution": 48,

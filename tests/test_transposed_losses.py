@@ -1,19 +1,10 @@
 """Parity of the transposed (points-minor) training pipeline.
 
 The _T path (scene_rep.render_rays_T / forward_losses_T,
-ops/losses.get_sdf_loss_T, ops/field_pallas.field_query_diff_T) must
-produce EXACTLY the same loss values and gradients as the row-major
-reference path — it is a layout change, not a math change. Two layers:
-
-  * composite (non-pallas) field: forward_losses vs forward_losses_T
-    value + grad parity on CPU;
-  * fused kernels in interpret mode: field_query_diff_T vs
-    field_query_diff value + (params, x) gradient parity.
+ops/losses.get_sdf_loss_T) must produce the same loss values and
+gradients as the row-major reference path (forward_losses) — it is a
+layout change, not a math change.
 """
-
-import os
-
-os.environ["MIPS_PALLAS_INTERPRET"] = "1"  # must precede kernel import
 
 import dataclasses
 
@@ -21,21 +12,17 @@ import jax
 import jax.flatten_util
 import jax.numpy as jnp
 import numpy as np
-import pytest
-
-pytestmark = pytest.mark.slow  # interpret-mode kernels on CPU
 
 from mipsfusion_tpu.models import scene_rep as sr
 
 
-def _field(use_pallas: bool):
+def _field():
     fcfg = sr.FieldConfig(
         enc="Triplane",
         tri=dataclasses.replace(sr.FieldConfig().tri,
                                 resolutions=(16, 32), n_features=4,
                                 cp_resolution=64, cp_components=24),
         freq=dataclasses.replace(sr.FieldConfig().freq, n_frequencies=8),
-        use_pallas=use_pallas,
     )
     fcfg = dataclasses.replace(
         fcfg, decoder=dataclasses.replace(
@@ -63,9 +50,8 @@ def _rays(n=37):
 LOSS_KEYS = ("rgb_loss", "depth_loss", "sdf_loss", "fs_loss", "psnr")
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_forward_losses_T_value_parity(use_pallas):
-    fcfg, params = _field(use_pallas)
+def test_forward_losses_T_value_parity():
+    fcfg, params = _field()
     consts = sr.FieldConsts(jnp.zeros(3), jnp.ones(3) * 0.8)
     rays_o, rays_d, rgb, d = _rays()
     key = jax.random.PRNGKey(7)
@@ -85,11 +71,10 @@ def test_forward_losses_T_value_parity(use_pallas):
                                atol=2e-6)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_forward_losses_T_grad_parity(use_pallas):
+def test_forward_losses_T_grad_parity():
     """Gradients wrt params AND the pose-side inputs (rays) must match —
     the BA/GO optimizers consume both."""
-    fcfg, params = _field(use_pallas)
+    fcfg, params = _field()
     consts = sr.FieldConsts(jnp.zeros(3), jnp.ones(3) * 0.8)
     rays_o, rays_d, rgb, d = _rays()
     key = jax.random.PRNGKey(7)
@@ -115,34 +100,3 @@ def test_forward_losses_T_grad_parity(use_pallas):
                                np.asarray(flat_ref) / scale,
                                rtol=3e-4, atol=3e-5)
 
-
-def test_field_query_diff_T_matches_untransposed():
-    from mipsfusion_tpu.ops.field_pallas import (field_query_diff,
-                                                 field_query_diff_T)
-    fcfg, params = _field(True)
-    x = jax.random.uniform(jax.random.PRNGKey(1), (301, 3),
-                           minval=0.05, maxval=0.95)
-    res = fcfg.tri.resolutions
-
-    out_ref = field_query_diff(params, x, res, 8, fcfg.decoder.n_class)
-    out_T = field_query_diff_T(params, x.T, res, 8, fcfg.decoder.n_class)
-    np.testing.assert_allclose(np.asarray(out_T), np.asarray(out_ref).T,
-                               rtol=1e-5, atol=1e-6)
-
-    w = jax.random.normal(jax.random.PRNGKey(2),
-                          (301, 5 + fcfg.decoder.n_class))
-
-    def f_ref(p, xx):
-        return jnp.sum(field_query_diff(p, xx, res, 8,
-                                        fcfg.decoder.n_class) * w)
-
-    def f_T(p, xx):
-        return jnp.sum(field_query_diff_T(p, xx.T, res, 8,
-                                          fcfg.decoder.n_class) * w.T)
-
-    g_ref = jax.grad(f_ref, argnums=(0, 1))(params, x)
-    g_T = jax.grad(f_T, argnums=(0, 1))(params, x)
-    flat_ref, _ = jax.flatten_util.ravel_pytree(g_ref)
-    flat_T, _ = jax.flatten_util.ravel_pytree(g_T)
-    np.testing.assert_allclose(np.asarray(flat_T), np.asarray(flat_ref),
-                               rtol=1e-4, atol=1e-5)

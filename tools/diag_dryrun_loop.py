@@ -1,12 +1,10 @@
 """Reproduce the multichip dryrun's whole-system outback phase on ONE
-device (TPU) for fast iteration.
+device for fast iteration.
 
 The 8-device CPU dryrun takes ~30 min/attempt on this 1-core host; the
 switch-back logic it asserts is device-count-independent (sharding only
 constrains ray-batch layouts), so a single-device run of the SAME
 config reproduces the manager/trajectory behavior in ~2 min.
-``use_pallas: false`` keeps the Triplane XLA fallback — the numerics
-family the CPU dryrun executes.
 
     python tools/diag_dryrun_loop.py [--seed N] [--overrides k=v,...]
 """
@@ -37,7 +35,6 @@ def main():
     cfg = _loop_system_cfg(8)
     cfg["parallel"] = {"sharded_refine": False, "dp_hot_path": False}
     cfg["sync_per_frame"] = False
-    cfg["grid"]["use_pallas"] = False   # the dryrun's XLA fallback path
     cfg["seed"] = args.seed
     cfg["debug_loop"] = args.debug
     ov = {}

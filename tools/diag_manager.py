@@ -66,6 +66,6 @@ timeit("predicates only",
            jnp.asarray(mgr.cfg.min_cr_localMLP_len, jnp.float32),
            mgr.cfg.near, mgr.cfg.far, mgr.cr_rows, mgr.cr_cols))
 
-# a bare no-op readback for the RTT floor
+# a bare no-op readback for the dispatch + sync floor
 x = jnp.zeros((4,))
-timeit("RTT floor (tiny add)", lambda: x + 1.0)
+timeit("dispatch + sync floor (tiny add)", lambda: x + 1.0)

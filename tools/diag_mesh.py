@@ -1,4 +1,4 @@
-"""Diagnose mesh quality on the outback multi-submap scene (TPU).
+"""Diagnose mesh quality on the outback multi-submap scene.
 
 Runs the SLAM once and checkpoints it (output/mesh_diag/), then mesh
 experiments restore via system.resume_from — so meshing changes iterate

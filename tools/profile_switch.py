@@ -1,4 +1,4 @@
-"""Profile: per-stage breakdown of switch-back frame cost on TPU.
+"""Profile: per-stage breakdown of switch-back frame cost.
 
 Drives the outback multi-submap scene twice (warm, then timed with
 per-stage sync) and prints mean/max/sum ms per stage. Companion to

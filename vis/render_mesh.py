@@ -25,7 +25,7 @@ def main():
     parser.add_argument("--voxel_size", type=float, default=None)
     parser.add_argument("--no_joint", action="store_true")
     parser.add_argument("--cpu", action="store_true",
-                        help="force the CPU backend (e.g. while the TPU "
+                        help="force the CPU backend (e.g. while the GPU "
                              "is busy)")
     args = parser.parse_args()
 
@@ -38,13 +38,15 @@ def main():
     from mipsfusion_tpu.mesher.mesher import save_mesh_ply
     from mipsfusion_tpu.models import scene_rep as sr
     from mipsfusion_tpu.slam.checkpoint import load_ckpt
+    import jax
     import jax.numpy as jnp
 
     cfg = load_config(args.config)
     ckpt_dir = os.path.join(args.seq_result, f"ckpt_{args.ckpt}")
     state, submap_params, extra = load_ckpt(ckpt_dir)
 
-    fcfg = sr.FieldConfig.from_dict(cfg)
+    fcfg = sr.for_platform(sr.FieldConfig.from_dict(cfg),
+                           jax.default_backend())
     m = cfg["mapping"]
     if fcfg.use_bound_normalize:
         consts = sr.FieldConsts.from_bound(jnp.asarray(m["bound"]))
